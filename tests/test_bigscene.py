@@ -1,22 +1,13 @@
-"""Buddha-scale capability: million-triangle scenes through the brick
-pipeline (the reference demonstrates 1.09M-tri buddha renders,
-/root/reference/README.md:130-133; the PLYs are stripped from the mirror,
-so we subdivide bunny to the same scale — models/subdivide.py)."""
+"""Large-mesh building blocks: midpoint subdivision (models/subdivide.py)
+and the seeded stand-in meshes built on it (models/blob.py), which take the
+place of the reference's scanned bunny and modelled teapot."""
 
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
-from pathtracer_cuda_interactive_tpu.models.bricks import (MAX_TOP_NODES,
-                                                           STACK_DEPTH,
-                                                           BrickSet)
-from pathtracer_cuda_interactive_tpu.models.ir import ParsedTriangleMesh
-from pathtracer_cuda_interactive_tpu.models.scenepack import (load_scene,
-                                                              pack_scene)
-from pathtracer_cuda_interactive_tpu.models.subdivide import (subdivide_mesh,
-                                                              subdivide_scene)
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera, camera_ray_data
+from torrey.models.blob import blob_mesh
+from torrey.models.ir import ParsedTriangleMesh
+from torrey.models.subdivide import subdivide_mesh
 
 
 def test_subdivide_preserves_surface():
@@ -42,26 +33,34 @@ def test_subdivide_preserves_surface():
     assert np.allclose(out.positions.max(0), mesh.positions.max(0))
 
 
-@pytest.mark.parametrize("levels,expect_min", [(1, 1_100_000)])
-def test_bunny_megascale_brickset(scenes_dir, levels, expect_min):
-    """Subdivided bunny (~1.15M tris) must build a BrickSet inside the
-    resident SMEM budgets and render through the wavefront tracer."""
-    pack0, parsed = load_scene(f"{scenes_dir}/bunny/bunny.xml")
-    big = subdivide_scene(parsed, levels=levels)
-    assert big.num_triangles >= expect_min, big.num_triangles
-    pack = pack_scene(big)
-    bs = BrickSet.from_pack(pack)
-    # SMEM budgets hold at buddha scale (brickkernel scratch contract)
-    assert bs.num_top <= MAX_TOP_NODES
-    links = bs.top_links.reshape(-1, 2)[:bs.num_top]
-    assert np.array_equal(np.sort(links[links[:, 1] >= 0, 1]),
-                          np.arange(bs.num_bricks))
+@pytest.mark.parametrize("n", [1, 7, 40, 6320, 144046])
+def test_blob_mesh_has_exact_triangle_count(n):
+    mesh = blob_mesh(3, n)
+    assert mesh.indices.shape == (n, 3)
+    V = mesh.positions.shape[0]
+    # every vertex is used and every index is in range
+    assert np.array_equal(np.unique(mesh.indices), np.arange(V))
+    assert mesh.normals.shape == (V, 3) and mesh.uvs.shape == (V, 2)
+    assert np.isfinite(mesh.positions).all()
 
-    from pathtracer_cuda_interactive_tpu.ops.wavefront import (
-        render_samples_wavefront)
-    cd = jnp.asarray(camera_ray_data(Camera.from_parsed(parsed.camera),
-                                     64, 32))
-    img = np.asarray(render_samples_wavefront(
-        bs, cd, 64, 32, 0, 1, max_depth=2, interpret=True))
-    assert np.isfinite(img).all()
-    assert img.std() > 0  # non-constant: geometry actually hit
+
+def test_blob_mesh_is_deterministic_per_seed():
+    a, b = blob_mesh(7, 5000), blob_mesh(7, 5000)
+    np.testing.assert_array_equal(a.positions, b.positions)
+    np.testing.assert_array_equal(a.indices, b.indices)
+    c = blob_mesh(8, 5000)
+    assert not np.array_equal(a.positions, c.positions)
+
+
+def test_blob_mesh_is_cut_from_below():
+    """Triangles are removed from the bottom up: every kept triangle's
+    lowest corner is at or above every dropped one's."""
+    full = blob_mesh(5, 2 * 20 * 4 ** 3)       # two whole level-3 parts
+    cut = blob_mesh(5, 2000)
+    assert full.positions[:, 1].min() < cut.positions[:, 1].min()
+    np.testing.assert_allclose(full.positions.max(0), cut.positions.max(0))
+
+
+def test_blob_mesh_rejects_empty():
+    with pytest.raises(ValueError):
+        blob_mesh(0, 0)

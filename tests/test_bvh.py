@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.models.bvh import (build_bvh,
+from torrey.models.bvh import (build_bvh,
                                                         validate_bvh)
 
 

@@ -1,7 +1,6 @@
-"""Whole-corpus integration sweep: every loadable reference scene parses,
-packs, renders non-trivially and reproduces bit-exactly under a fixed seed
-(SURVEY.md §4 b/d).  buddha/dragon XMLs reference PLY blobs stripped from
-the mirror and are skipped."""
+"""Whole-corpus integration sweep: every scene of the repository's corpus
+parses, packs, renders non-trivially and reproduces bit-exactly under a
+fixed seed (SURVEY.md §4 b/d)."""
 
 import glob
 import os
@@ -11,23 +10,23 @@ import pytest
 
 import jax.numpy as jnp
 
-from pathtracer_cuda_interactive_tpu.models.device_scene import DeviceScene
-from pathtracer_cuda_interactive_tpu.models.scenepack import load_scene
-from pathtracer_cuda_interactive_tpu.ops import integrator
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera, camera_ray_data
+from torrey.models.device_scene import DeviceScene
+from torrey.models.scenepack import load_scene
+from torrey.ops import integrator
+from torrey.ops.camera import Camera, camera_ray_data
 
-SCENES = sorted(glob.glob("/root/reference/scenes/*/*.xml"))
+ROOT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scenes")
+SCENES = sorted(glob.glob(os.path.join(ROOT, "*", "*.xml")))
 W, H = 64, 48
 
 
-def _loadable(path):
-    base = os.path.basename(os.path.dirname(path))
-    return base not in ("buddha", "dragon")
+def test_corpus_is_complete():
+    assert len(SCENES) == 14
 
 
-@pytest.mark.parametrize(
-    "xml", [s for s in SCENES if _loadable(s)],
-    ids=lambda s: os.path.relpath(s, "/root/reference/scenes"))
+@pytest.mark.parametrize("xml", SCENES,
+                         ids=lambda s: os.path.relpath(s, ROOT))
 def test_scene_renders_and_reproduces(xml):
     pack, parsed = load_scene(xml)
     assert pack.num_prims > 0

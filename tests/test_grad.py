@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.grad import inverse as inv
-from pathtracer_cuda_interactive_tpu.models.device_scene import DeviceScene
-from pathtracer_cuda_interactive_tpu.models.scenepack import load_scene
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera, camera_ray_data
-from pathtracer_cuda_interactive_tpu.parallel import sharding as sh
+from torrey.grad import inverse as inv
+from torrey.models.device_scene import DeviceScene
+from torrey.models.scenepack import load_scene
+from torrey.ops.camera import Camera, camera_ray_data
+from torrey.parallel import sharding as sh
 
 W, H, SPP, BOUNCES = 32, 24, 2, 3
 
@@ -55,7 +55,7 @@ def test_grad_matches_finite_difference(setup):
     # central finite differences on a few scalar entries.  light_intensity
     # is reachable only through NEE (auto-enabled: scene1 has point
     # lights), so its inclusion guards against the silently-dead-parameter
-    # regression (ADVICE r1: nee was never threaded through the diff path).
+    # regression (NEE not threaded through the diff path).
     checked = 0
     for key in ("mat_r", "mat_g", "bg_r", "light_intensity"):
         g = np.asarray(grads[key])

@@ -7,21 +7,21 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pathtracer_cuda_interactive_tpu.models.device_scene import DeviceScene
-from pathtracer_cuda_interactive_tpu.models.ir import (ParsedCamera,
+from torrey.models.device_scene import DeviceScene
+from torrey.models.ir import (ParsedCamera,
                                                        ParsedDiffuse,
                                                        ParsedDiffuseAreaLight,
                                                        ParsedMirror,
                                                        ParsedScene,
                                                        ParsedSphere)
-from pathtracer_cuda_interactive_tpu.models.scenepack import pack_scene
-from pathtracer_cuda_interactive_tpu.ops import rng
-from pathtracer_cuda_interactive_tpu.ops.bruteforce import intersect_brute
-from pathtracer_cuda_interactive_tpu.ops.integrator import (radiance,
+from torrey.models.scenepack import pack_scene
+from torrey.ops import rng
+from torrey.ops.bruteforce import intersect_brute
+from torrey.ops.integrator import (radiance,
                                                             radiance_fixed,
                                                             render_samples)
-from pathtracer_cuda_interactive_tpu.ops.trace import trace_rays
-from pathtracer_cuda_interactive_tpu.ops.vec import Vec3
+from torrey.ops.trace import trace_rays
+from torrey.ops.vec import Vec3
 
 
 def _cam(w=8, h=8):

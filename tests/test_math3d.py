@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.utils import math3d as m3
+from torrey.utils import math3d as m3
 
 
 def test_translate_scale_rotate_compose():

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.models import native
-from pathtracer_cuda_interactive_tpu.models.bvh import build_bvh, validate_bvh
+from torrey.models import native
+from torrey.models.bvh import build_bvh, validate_bvh
 
 
 def _random_boxes(P, seed=0):
@@ -60,7 +60,7 @@ def test_native_is_faster_at_scale():
 def test_native_sah_matches_numpy_bitwise(P, leaf):
     """C++ binned-SAH treelets == numpy reference, field for field
     (same numerics, stable partition, first-min tie-breaks)."""
-    from pathtracer_cuda_interactive_tpu.models import sah
+    from torrey.models import sah
     pmin, pmax = _random_boxes(P, seed=P + 7)
     a = sah._build_sah_treelets_numpy(pmin, pmax, leaf_size=leaf)
     b_t = native.build_sah_treelets_native(pmin, pmax, leaf)
@@ -77,7 +77,7 @@ def test_native_sah_matches_numpy_bitwise(P, leaf):
 
 @needs_native
 def test_native_sah_is_faster_at_scale():
-    from pathtracer_cuda_interactive_tpu.models import sah
+    from torrey.models import sah
     pmin, pmax = _random_boxes(400000, seed=11)
     t0 = time.perf_counter()
     nat = native.build_sah_treelets_native(pmin, pmax, 512)

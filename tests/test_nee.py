@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from pathtracer_cuda_interactive_tpu.models.device_scene import DeviceScene
-from pathtracer_cuda_interactive_tpu.models.scenepack import load_scene
-from pathtracer_cuda_interactive_tpu.ops import integrator
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera, camera_ray_data
+from torrey.models.device_scene import DeviceScene
+from torrey.models.scenepack import load_scene
+from torrey.ops import integrator
+from torrey.ops.camera import Camera, camera_ray_data
 
 W, H = 64, 48
 
@@ -102,8 +102,8 @@ def test_nee_shadow_rays(tmp_path):
 
     # direct shadow-ray checks: the shadow patch near (0.25, 0.97, 0) is
     # blocked; the pole's own path to the light is clear
-    from pathtracer_cuda_interactive_tpu.ops.trace import trace_occluded
-    from pathtracer_cuda_interactive_tpu.ops.vec import Vec3
+    from torrey.ops.trace import trace_occluded
+    from torrey.ops.vec import Vec3
     ones = jnp.ones((1, 1), jnp.float32)
 
     def occluded_from(p):
@@ -152,11 +152,10 @@ def test_nee_brightens_pointlight_scene(scenes_dir):
 
 
 def test_nee_megakernel_matches_xla(tmp_path):
-    """Point-light NEE on the Pallas megakernel (SMEM brute-force shadow
-    rays) agrees with the XLA oracle's _direct_point_lights — same PCG
+    """Point-light NEE on the megakernel (brute-force shadow rays over the
+    primitive table) agrees with the XLA oracle's _direct_point_lights — same PCG
     streams (NEE draws no RNG), so only fp ordering differs."""
-    from pathtracer_cuda_interactive_tpu.ops.megakernel import (
-        render_samples_pallas)
+    from torrey.ops.megakernel import render_samples_pallas
 
     body = """
           <background><rgb name="radiance" value="0.1, 0.1, 0.1"/></background>
@@ -192,12 +191,11 @@ def test_nee_megakernel_matches_xla(tmp_path):
     assert (got - base).max() > 0.05
 
 
-def test_nee_wavefront_matches_xla(tmp_path):
-    """Point-light NEE on the sorted-wavefront path (shadow waves through
-    the brick tree) matches the XLA oracle on a triangle+sphere scene."""
-    from pathtracer_cuda_interactive_tpu.models.bricks import BrickSet
-    from pathtracer_cuda_interactive_tpu.ops.wavefront import (
-        render_samples_wavefront)
+def test_nee_megakernel_triangle_shadows_match_xla(tmp_path):
+    """Point-light NEE on the megakernel with a triangle receiver and a
+    sphere occluder: its brute-force shadow rays agree with the oracle's
+    BVH any-hit query."""
+    from torrey.ops.megakernel import render_samples_pallas
 
     body = """
           <background><rgb name="radiance" value="0.05, 0.05, 0.05"/></background>
@@ -223,15 +221,14 @@ def test_nee_wavefront_matches_xla(tmp_path):
     """
     pack, parsed = load_scene(_write_scene(tmp_path, body))
     ds = DeviceScene.from_pack(pack)
-    bs = BrickSet.from_pack(pack)
     cd = jnp.asarray(camera_ray_data(Camera.from_parsed(parsed.camera), W, H))
     ref = np.asarray(integrator.render_samples(
         ds, cd, W, H, 0, 1, max_depth=3, nee=True))
-    got = np.asarray(render_samples_wavefront(
-        bs, cd, W, H, 0, 1, max_depth=3, interpret=True, nee=True))
+    got = np.asarray(render_samples_pallas(
+        ds, cd, W, H, 0, 1, max_depth=3, interpret=True, nee=True))
     bad = np.abs(ref - got) > 1e-3
     assert bad.mean() < 1e-3
     assert np.abs(ref - got).mean() < 1e-3
-    base = np.asarray(render_samples_wavefront(
-        bs, cd, W, H, 0, 1, max_depth=3, interpret=True, nee=False))
+    base = np.asarray(render_samples_pallas(
+        ds, cd, W, H, 0, 1, max_depth=3, interpret=True, nee=False))
     assert (got - base).max() > 0.02

@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pathtracer_cuda_interactive_tpu.ops import brdf, geometry as g, rng
-from pathtracer_cuda_interactive_tpu.ops.camera import (Camera,
+from torrey.ops import brdf, geometry as g, rng
+from torrey.ops.camera import (Camera,
                                                         camera_ray_data,
                                                         generate_primary_rays)
-from pathtracer_cuda_interactive_tpu.ops.vec import Vec3, dot, normalize
+from torrey.ops.vec import Vec3, dot, normalize
 
 
 def v3(*pts):
@@ -100,7 +100,7 @@ def test_frame_orthonormal():
 
 
 def test_reflect():
-    from pathtracer_cuda_interactive_tpu.ops.vec import reflect
+    from torrey.ops.vec import reflect
     n = v3((0, 0, 1))
     wi = normalize(v3((1, 0, 1)))
     r = reflect(wi, n)
@@ -223,7 +223,7 @@ def test_phong_pdf_integrates_to_one():
 
 
 def test_mirror_is_pure_specular_with_fresnel_weight():
-    from pathtracer_cuda_interactive_tpu.ops.vec import reflect
+    from torrey.ops.vec import reflect
     mat = _mat(1, [0.9, 0.8, 0.7])
     n = v3((0, 0, 1))
     wi = normalize(v3((0, 0.6, 0.8)))

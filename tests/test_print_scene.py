@@ -1,7 +1,7 @@
 """Scene pretty-printer (print_scene.cpp parity, SURVEY.md C12)."""
 
-from pathtracer_cuda_interactive_tpu.io.print_scene import format_scene
-from pathtracer_cuda_interactive_tpu.io.xml_scene import parse_scene
+from torrey.io.print_scene import format_scene
+from torrey.io.xml_scene import parse_scene
 
 
 def test_format_cbox(scenes_dir):
@@ -20,7 +20,7 @@ def test_format_spheres_and_pointlights(scenes_dir):
 
 
 def test_cli(scenes_dir, capsys):
-    from pathtracer_cuda_interactive_tpu.io import print_scene
+    from torrey.io import print_scene
     assert print_scene.main([f"{scenes_dir}/triangles/tetrahedron.xml"]) == 0
     out = capsys.readouterr().out
     assert "Scene[" in out and "TriangleMesh[" in out

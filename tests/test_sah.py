@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from pathtracer_cuda_interactive_tpu.models.sah import (build_sah_treelets,
+from torrey.models.sah import (build_sah_treelets,
                                                         validate_treelets)
 
 

@@ -1,4 +1,4 @@
-"""Scene/asset I/O tests: parse every reference scene XML and check counts,
+"""Scene/asset I/O tests: parse every corpus scene XML and check counts,
 material tables, lights and transforms (SURVEY.md §4a golden corpus)."""
 
 import os
@@ -6,14 +6,15 @@ import os
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.io.obj import parse_obj
-from pathtracer_cuda_interactive_tpu.io.ply import parse_ply
-from pathtracer_cuda_interactive_tpu.io.xml_scene import parse_scene
-from pathtracer_cuda_interactive_tpu.models.ir import (
+from torrey.io.obj import parse_obj
+from torrey.io.ply import parse_ply
+from torrey.io.xml_scene import parse_scene
+from torrey.models.blob import blob_mesh
+from torrey.models.ir import (
     ParsedDiffuseAreaLight, ParsedPointLight, ParsedSphere,
     ParsedTriangleMesh)
-from pathtracer_cuda_interactive_tpu.models.scenepack import pack_scene
-from pathtracer_cuda_interactive_tpu.utils import math3d as m3
+from torrey.models.scenepack import pack_scene
+from torrey.utils import math3d as m3
 
 ALL_SCENES = [
     "spheres/scene0.xml",
@@ -34,10 +35,7 @@ ALL_SCENES = [
 
 
 def _scene_path(scenes_dir, rel):
-    path = os.path.join(scenes_dir, rel)
-    if not os.path.exists(path):
-        pytest.skip(f"scene {rel} not in mirror")
-    return path
+    return os.path.join(scenes_dir, rel)
 
 
 @pytest.mark.parametrize("rel", ALL_SCENES)
@@ -112,15 +110,20 @@ def test_rectangle_expansion(scenes_dir):
     assert np.allclose(np.abs(rect.normals[0]), [0, 1, 0], atol=1e-6)
 
 
-def test_obj_loader_teapot(scenes_dir):
-    path = os.path.join(scenes_dir, "teapot/teapot.obj")
-    if not os.path.exists(path):
-        pytest.skip("teapot obj missing")
-    mesh = parse_obj(path)
-    assert mesh.indices.shape[0] > 0
-    assert mesh.positions.shape[0] > 0
-    assert np.all(mesh.indices >= 0)
-    assert np.all(mesh.indices < mesh.positions.shape[0])
+def test_obj_loader_teapot(tmp_path):
+    """The teapot stand-in (a seeded mesh, models/blob.py) written as OBJ
+    and read back: same triangles, indices in range."""
+    mesh = blob_mesh(11, 6320)
+    path = tmp_path / "teapot.obj"
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.positions]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in mesh.indices]
+    path.write_text("\n".join(lines) + "\n")
+    got = parse_obj(str(path))
+    assert got.indices.shape == (6320, 3)
+    assert np.all(got.indices >= 0)
+    assert np.all(got.indices < got.positions.shape[0])
+    np.testing.assert_allclose(got.positions[got.indices],
+                               mesh.positions[mesh.indices], atol=1e-6)
 
 
 def test_obj_loader_quads_and_negative_indices(tmp_path):
@@ -160,17 +163,29 @@ def test_obj_ngon_rejected(tmp_path):
         parse_obj(str(obj))
 
 
-def test_ply_loader_bunny(scenes_dir):
-    path = os.path.join(scenes_dir, "bunny/bunny.ply")
-    if not os.path.exists(path):
-        pytest.skip("bunny ply missing")
-    mesh = parse_ply(path)
-    # README.md:124 cites 144,046 triangles for the bunny
-    assert mesh.indices.shape == (144046, 3)
-    assert mesh.positions.shape == (72378, 3)
-    assert mesh.normals is not None and mesh.normals.shape == (72378, 3)
-    assert np.allclose(np.linalg.norm(mesh.normals, axis=-1), 1.0, atol=1e-3)
-    assert mesh.uvs is not None
+def test_ply_loader_bunny(tmp_path):
+    """The bunny stand-in at the reference's 144,046 triangles, written as
+    binary little-endian PLY with normals and uvs and read back."""
+    mesh = blob_mesh(7, 144046)
+    V = mesh.positions.shape[0]
+    verts = np.concatenate([mesh.positions, mesh.normals, mesh.uvs],
+                           axis=1).astype("<f4")
+    faces = np.zeros(144046, [("n", "u1"), ("i", "<i4", 3)])
+    faces["n"], faces["i"] = 3, mesh.indices
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {V}\n"
+              + "".join(f"property float {p}\n"
+                        for p in ("x", "y", "z", "nx", "ny", "nz", "u", "v"))
+              + "element face 144046\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    path = tmp_path / "bunny.ply"
+    path.write_bytes(header.encode() + verts.tobytes() + faces.tobytes())
+    got = parse_ply(str(path))
+    assert got.indices.shape == (144046, 3)
+    assert got.positions.shape == (V, 3)
+    assert got.normals is not None and got.normals.shape == (V, 3)
+    assert np.allclose(np.linalg.norm(got.normals, axis=-1), 1.0, atol=1e-3)
+    assert got.uvs is not None
+    np.testing.assert_array_equal(got.indices, mesh.indices)
 
 
 def test_ply_ascii_roundtrip(tmp_path):

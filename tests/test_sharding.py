@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the 8-virtual-device CPU mesh
+"""Multi-device sharding tests on the 8-virtual-device CPU mesh
 (SURVEY.md §4e).  The sharded render must agree with the single-device
 render bit-for-bit in sample content: tile sharding only partitions pixel
 rows, and sample sharding partitions the same sample indices, so the
@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.models.device_scene import DeviceScene
-from pathtracer_cuda_interactive_tpu.models.scenepack import load_scene
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera, camera_ray_data
-from pathtracer_cuda_interactive_tpu.ops.integrator import render_samples
-from pathtracer_cuda_interactive_tpu.parallel import sharding as sh
+from torrey.models.device_scene import DeviceScene
+from torrey.models.scenepack import load_scene
+from torrey.ops.camera import Camera, camera_ray_data
+from torrey.ops.integrator import render_samples
+from torrey.parallel import sharding as sh
 
 W, H, SPP = 64, 48, 4
 
@@ -65,22 +65,12 @@ def test_tile_padding_covers_image():
     assert pix[0, 0] == 0 and pix.flat[33 * 7 - 1] == 33 * 7 - 1
 
 
-# --- Pallas compute paths inside shard_map (interpret mode on the CPU
-# mesh; on TPU the same code JITs the real kernels) ----------------------
-
-@pytest.fixture(scope="module")
-def teapot_scene(scenes_dir):
-    from pathtracer_cuda_interactive_tpu.models.bricks import BrickSet
-    pack, parsed = load_scene(f"{scenes_dir}/teapot/teapot_constant.xml")
-    cam = Camera.from_parsed(parsed.camera)
-    cd = jnp.asarray(camera_ray_data(cam, W, H))
-    return pack, BrickSet.from_pack(pack), cd
-
+# --- the megakernel inside shard_map (Pallas interpreter on the CPU mesh;
+# on GPUs the same code runs the compiled Triton kernel) -----------------
 
 @pytest.mark.parametrize("sample_parallel", [1, 4])
 def test_sharded_megakernel_matches_single(sphere_scene, sample_parallel):
-    from pathtracer_cuda_interactive_tpu.ops.megakernel import (
-        render_samples_pallas)
+    from torrey.ops.megakernel import render_samples_pallas
     scene, cd = sphere_scene
     mesh = sh.make_mesh(sample_parallel=sample_parallel)
     scene_r = sh.replicate_scene(scene, mesh)
@@ -91,62 +81,3 @@ def test_sharded_megakernel_matches_single(sphere_scene, sample_parallel):
         scene, cd, W, H, jnp.uint32(0), 3, interpret=True))
     # per-pixel computation is identical per block; psum only adds zeros
     np.testing.assert_allclose(img, ref, rtol=1e-6, atol=1e-6)
-
-
-def test_sharded_bricks_matches_single(teapot_scene):
-    from pathtracer_cuda_interactive_tpu.ops.brickkernel import (
-        render_samples_bricks)
-    _, bs, cd = teapot_scene
-    mesh = sh.make_mesh(sample_parallel=2)
-    bs_r = sh.replicate_scene(bs, mesh)
-    img = np.asarray(sh.render_samples_sharded(
-        bs_r, cd, W, H, jnp.uint32(0), 3, mesh, mode="bricks",
-        max_depth=3, interpret=True))
-    ref = np.asarray(render_samples_bricks(
-        bs, cd, W, H, jnp.uint32(0), 3, max_depth=3, interpret=True))
-    np.testing.assert_allclose(img, ref, rtol=1e-6, atol=1e-6)
-
-
-def test_sharded_wavefront_matches_single(teapot_scene):
-    from pathtracer_cuda_interactive_tpu.ops.wavefront import (
-        render_samples_wavefront)
-    _, bs, cd = teapot_scene
-    mesh = sh.make_mesh(sample_parallel=2)
-    bs_r = sh.replicate_scene(bs, mesh)
-    img = np.asarray(sh.render_samples_sharded(
-        bs_r, cd, W, H, jnp.uint32(0), 3, mesh, mode="wavefront",
-        max_depth=3, interpret=True))
-    ref = np.asarray(render_samples_wavefront(
-        bs, cd, W, H, jnp.uint32(0), 3, max_depth=3, interpret=True))
-    # tile shards sort/trace disjoint ray sets; per-ray radiance is
-    # identical, pixel sums differ only by fp reduction order
-    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-5)
-
-
-def test_sharded_mx_matches_single(teapot_scene):
-    from pathtracer_cuda_interactive_tpu.experiments.mxset import MXSet
-    from pathtracer_cuda_interactive_tpu.experiments.mxtrace import render_samples_mx
-    pack, _, cd = teapot_scene
-    mx = MXSet.from_pack(pack)
-    mesh = sh.make_mesh(sample_parallel=2)
-    mx_r = sh.replicate_scene(mx, mesh)
-    img = np.asarray(sh.render_samples_sharded(
-        mx_r, cd, W, H, jnp.uint32(0), 3, mesh, mode="mx", max_depth=3))
-    ref = np.asarray(render_samples_mx(
-        mx, cd, W, H, jnp.uint32(0), 3, max_depth=3))
-    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-5)
-
-
-def test_sharded_mx2_matches_single(teapot_scene):
-    from pathtracer_cuda_interactive_tpu.experiments.mx2set import MX2Set
-    from pathtracer_cuda_interactive_tpu.experiments.mx2 import render_samples_mx2
-    pack, _, cd = teapot_scene
-    mx = MX2Set.from_pack(pack)
-    mesh = sh.make_mesh(sample_parallel=2)
-    mx_r = sh.replicate_scene(mx, mesh)
-    img = np.asarray(sh.render_samples_sharded(
-        mx_r, cd, W, H, jnp.uint32(0), 3, mesh, mode="mx2", max_depth=3,
-        interpret=True))
-    ref = np.asarray(render_samples_mx2(
-        mx, cd, W, H, jnp.uint32(0), 3, max_depth=3, interpret=True))
-    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-5)

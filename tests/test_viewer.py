@@ -8,9 +8,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from pathtracer_cuda_interactive_tpu.ops.camera import Camera
-from pathtracer_cuda_interactive_tpu.utils.config import RenderConfig
-from pathtracer_cuda_interactive_tpu.viewer.controls import CameraController
+from torrey.ops.camera import Camera
+from torrey.utils.config import RenderConfig
+from torrey.viewer.controls import CameraController
 
 
 def _cam():
@@ -79,9 +79,9 @@ def test_no_drag_without_begin():
 
 @pytest.fixture(scope="module")
 def viewer(scenes_dir):
-    from pathtracer_cuda_interactive_tpu.render.renderer import (
+    from torrey.render.renderer import (
         ProgressiveRenderer)
-    from pathtracer_cuda_interactive_tpu.viewer.server import Viewer
+    from torrey.viewer.server import Viewer
 
     r = ProgressiveRenderer.from_xml(
         f"{scenes_dir}/spheres/scene1.xml",

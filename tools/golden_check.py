@@ -1,21 +1,12 @@
-"""Golden-image calibration + recording.
+"""Record the regression goldens of tests/test_golden.py.
 
-Two jobs (VERDICT r2 item 7):
+Renders each case at high spp and writes ``tests/goldens/<name>.png``, plus
+a seed-to-seed noise floor at the test's 24 spp into
+``tests/goldens/calibration.json``.  tests/test_golden.py compares low-spp
+renders against these with tolerances tied to that noise floor, so a
+BRDF, emission, camera or gamma regression fails.
 
-1. **Calibrate** against the reference's shipped sample images
-   (`/root/reference/sample_images/*.png`): render the same scenes at high
-   spp on the real chip, print tile-mean deltas — the numbers
-   tests/test_golden.py's tolerances are derived from.
-
-2. **Record** this framework's own high-spp renders for scenes the
-   reference shipped no image for (teapot, spheres area light), plus a
-   seed-to-seed noise floor for every case.  Written to
-   ``tests/goldens/<name>.png`` + ``tests/goldens/calibration.json``;
-   tests/test_golden.py compares low-spp CPU renders against these with
-   tolerances tied to the recorded noise floor, so a BRDF/emission/gamma
-   regression fails even where no reference image exists.
-
-Run on TPU:  python tools/golden_check.py [--record]
+Run:  python tools/golden_check.py [--record] [--cases cbox,teapot]
 """
 import argparse
 import json
@@ -23,28 +14,26 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-from pathtracer_cuda_interactive_tpu.render.renderer import ProgressiveRenderer
-from pathtracer_cuda_interactive_tpu.utils.config import RenderConfig
-from pathtracer_cuda_interactive_tpu.utils.image import read_png_any, write_png
+from torrey.render.renderer import ProgressiveRenderer  # noqa: E402
+from torrey.utils.config import RenderConfig  # noqa: E402
+from torrey.utils.image import write_png  # noqa: E402
 
-SCENES = "/root/reference/scenes"
-SAMPLES = "/root/reference/sample_images"
-GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "goldens")
+SCENES = os.path.join(ROOT, "scenes")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 
-# name, scene xml, ref png (None = self-recorded only), W, H, spp
+# name, scene xml, W, H, spp
 CASES = [
-    ("cbox", "cbox/cbox.xml", "cbox.png", 128, 128, 256),
-    ("bunny", "bunny/bunny.xml", "bunny.png", 160, 120, 64),
+    ("cbox", "cbox/cbox.xml", 128, 128, 256),
+    ("bunny", "bunny/bunny.xml", 160, 120, 64),
     ("scene1_phong", "spheres/scene1_spherical_light_phong.xml",
-     "scene1_phong.png", 160, 120, 256),
-    ("teapot", "teapot/teapot_constant.xml", None, 128, 96, 256),
-    ("scene1_area", "spheres/scene1_spherical_light.xml", None,
-     128, 96, 256),
+     160, 120, 256),
+    ("teapot", "teapot/teapot_constant.xml", 128, 96, 256),
+    ("scene1_area", "spheres/scene1_spherical_light.xml", 128, 96, 256),
 ]
 
 GRID = (12, 16)  # tile grid (rows, cols)
@@ -59,9 +48,7 @@ def tiles(img, grid=GRID):
 
 
 def render(xml, W, H, spp, seed=1984):
-    # a single 8-spp step size for EVERY call keeps each case at ONE jit
-    # variant (mixed 16/8 steps used to cost two multi-minute wavefront
-    # compiles per case and blow the recording window)
+    # one 8-spp step size for every call keeps each case at one compile
     assert spp % 8 == 0, spp
     r = ProgressiveRenderer.from_xml(xml, width=W, height=H,
                                      config=RenderConfig(seed=seed))
@@ -83,38 +70,27 @@ def main():
 
     only = set(args.cases.split(",")) if args.cases else None
     calib = {}
-    if os.path.exists(os.path.join(GOLDEN_DIR, "calibration.json")):
-        calib = json.load(open(os.path.join(GOLDEN_DIR, "calibration.json")))
+    cal_path = os.path.join(GOLDEN_DIR, "calibration.json")
+    if os.path.exists(cal_path):
+        with open(cal_path) as f:
+            calib = json.load(f)
 
-    for name, xml, refpng, W, H, spp in CASES:
+    for name, xml, W, H, spp in CASES:
         if only and name not in only:
             continue
-        ours, mode, dt = render(os.path.join(SCENES, xml), W, H, spp)
+        path = os.path.join(SCENES, xml)
+        ours, mode, dt = render(path, W, H, spp)
         entry = {"xml": xml, "W": W, "H": H, "spp": spp, "mode": mode,
                  "render_s": round(dt, 1)}
 
         # seed-to-seed noise floor at the TEST spp (24) — what the test's
         # tolerance must exceed
-        a, _, _ = render(os.path.join(SCENES, xml), W, H, 24, seed=1984)
-        b, _, _ = render(os.path.join(SCENES, xml), W, H, 24, seed=777)
-        noise = float(np.abs(tiles(a) - tiles(b)).mean())
-        noise_max = float(np.abs(tiles(a) - tiles(b)).max())
-        entry["tile_noise_mean_24spp"] = round(noise, 5)
-        entry["tile_noise_max_24spp"] = round(noise_max, 5)
-
-        if refpng is not None:
-            ref = read_png_any(os.path.join(SAMPLES, refpng))
-            ref = ref.astype(np.float32) / 255.0
-            rh, rw = ref.shape[:2]
-            fh, fw = rh // H, rw // W
-            ref = ref[:fh * H, :fw * W].reshape(H, fh, W, fw, 3).mean((1, 3))
-            d = np.abs(tiles(ref) - tiles(ours))
-            gd = np.abs(tiles(ref).mean((0, 1)) - tiles(ours).mean((0, 1)))
-            entry["vs_reference"] = {
-                "tile_mean_abs_d": round(float(d.mean()), 5),
-                "tile_max_abs_d": round(float(d.max()), 5),
-                "global_channel_d": [round(float(x), 5) for x in gd],
-            }
+        a, _, _ = render(path, W, H, 24, seed=1984)
+        b, _, _ = render(path, W, H, 24, seed=777)
+        entry["tile_noise_mean_24spp"] = round(
+            float(np.abs(tiles(a) - tiles(b)).mean()), 5)
+        entry["tile_noise_max_24spp"] = round(
+            float(np.abs(tiles(a) - tiles(b)).max()), 5)
         print(f"{name}: {json.dumps(entry)}", flush=True)
 
         if args.record:
@@ -123,7 +99,7 @@ def main():
             calib[name] = entry
 
     if args.record:
-        with open(os.path.join(GOLDEN_DIR, "calibration.json"), "w") as f:
+        with open(cal_path, "w") as f:
             json.dump(calib, f, indent=1, sort_keys=True)
         print(f"recorded -> {GOLDEN_DIR}")
 
